@@ -7,6 +7,6 @@ VEHICLES="${1:-1000}"
 TPS="${2:-200}"
 DURATION="${3:-30}"
 OUT="${4:-results}"
-exec python -m tpu_collide.bench.run_benchmark \
+exec python -m collide.bench.run_benchmark \
   --vehicles "$VEHICLES" --tps "$TPS" --duration "$DURATION" \
   --output-dir "$OUT" --mode fast

@@ -1,0 +1,1 @@
+from collide.index.grid import GridIndex, build_grid, query_radius, gather_candidates, cell_coords

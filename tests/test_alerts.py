@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tpu_collide import SystemConfig, make_step
-from tpu_collide.core.config import (WorldConfig, GridConfig,
-                                     DetectionConfig, AlertConfig)
-from tpu_collide.core.state import state_from_numpy
-from tpu_collide.engine import make_detect
-from tpu_collide.alerts.extract import extract_alerts, compute_priority
+from collide import SystemConfig, make_step
+from collide.core.config import (WorldConfig, GridConfig,
+                                 DetectionConfig, AlertConfig)
+from collide.core.state import state_from_numpy
+from collide.engine import make_detect
+from collide.alerts.extract import extract_alerts, compute_priority
 from tests.oracle import oracle_priority
 
 
@@ -114,8 +114,8 @@ def test_upsert_priority_change_lazy_requeue():
     must still deliver each alert exactly once per tick, with the LAST
     priority, and the queue stays bounded between pumps."""
     import asyncio
-    import tpu_collide as tc
-    from tpu_collide.alerts.manager import AlertManager
+    import collide as tc
+    from collide.alerts.manager import AlertManager
 
     m = AlertManager(tc.SystemConfig(num_objects=10))
     for i in range(100):
@@ -135,7 +135,7 @@ def test_upsert_priority_change_lazy_requeue():
 
 def _synthetic_pairs(rng, n, k, qual_frac):
     """Random PairRisks + matching state for extract_alerts input."""
-    from tpu_collide.detect.pipeline import PairRisks
+    from collide.detect.pipeline import PairRisks
 
     other = rng.integers(0, n, (n, k)).astype(np.int32)
     valid = rng.random((n, k)) < qual_frac

@@ -1,4 +1,4 @@
-"""Async checkpointing (VERDICT r2 #7): the snapshot must capture the state
+"""Async checkpointing: the snapshot must capture the state
 at save time bit-exactly even while stepping (donation) continues, overlap
 the transfer with stepping, and surface background failures."""
 import os
@@ -7,10 +7,10 @@ import numpy as np
 import jax
 import pytest
 
-import tpu_collide as tc
-from tpu_collide.core.config import ShardConfig, SimConfig
-from tpu_collide.sim import generate_fleet
-from tpu_collide.ckpt.checkpoint import CheckpointManager
+import collide as tc
+from collide.core.config import ShardConfig, SimConfig
+from collide.sim import generate_fleet
+from collide.ckpt.checkpoint import CheckpointManager
 
 
 def state_arrays(state):
@@ -20,7 +20,7 @@ def state_arrays(state):
 
 
 def test_scene_async_checkpoint_roundtrip(tmp_path):
-    from tpu_collide.api import Scene
+    from collide.api import Scene
 
     cfg = tc.SystemConfig(num_objects=256)
     sc = Scene(cfg, checkpoint_dir=str(tmp_path))
@@ -45,7 +45,7 @@ def test_scene_async_checkpoint_roundtrip(tmp_path):
 
 
 def test_sharded_scene_async_checkpoint(tmp_path):
-    from tpu_collide.api import ShardedScene
+    from collide.api import ShardedScene
 
     cfg = tc.SystemConfig(
         num_objects=256, sim=SimConfig(),

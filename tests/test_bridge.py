@@ -6,10 +6,10 @@ import asyncio
 
 import pytest
 
-from tpu_collide.runtime.messaging import (MessageBroker, Message,
-                                           TOPIC_ALERTS, TOPIC_HEARTBEATS)
-from tpu_collide.runtime.bridge import BrokerBridge, ORIGIN_HEADER
-from tpu_collide.runtime.reliability import HeartbeatMonitor, LeaderElection
+from collide.runtime.messaging import (MessageBroker, Message,
+                                       TOPIC_ALERTS, TOPIC_HEARTBEATS)
+from collide.runtime.bridge import BrokerBridge, ORIGIN_HEADER
+from collide.runtime.reliability import HeartbeatMonitor, LeaderElection
 
 
 def run(coro):
@@ -166,9 +166,9 @@ def test_two_collision_systems_bridged():
     bridge: each node's HeartbeatMonitor must see the other, and election
     must agree on one leader — the reference's multi-node deployment story
     (collision_system.py:224-310) on a real transport."""
-    from tpu_collide.system import CollisionSystem
-    import tpu_collide as tc
-    from tpu_collide.core.config import WorldConfig
+    from collide.system import CollisionSystem
+    import collide as tc
+    from collide.core.config import WorldConfig
 
     async def go():
         cfg = tc.SystemConfig(num_objects=8,

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tpu_collide import SystemConfig, make_detect
-from tpu_collide.core.config import WorldConfig, GridConfig, DetectionConfig
-from tpu_collide.core.state import state_from_numpy
+from collide import SystemConfig, make_detect
+from collide.core.config import WorldConfig, GridConfig, DetectionConfig
+from collide.core.state import state_from_numpy
 from tests.oracle import oracle_detect_all
 
 
@@ -156,7 +156,7 @@ def test_parity_city_skew_fleet():
     (optimized_performance_test.py:92-104) — the dense-city case SURVEY.md
     flags as the broad-phase capacity hazard."""
     import jax
-    from tpu_collide.sim import generate_fleet
+    from collide.sim import generate_fleet
 
     cfg = SystemConfig(
         num_objects=300,
@@ -189,9 +189,9 @@ def test_golden_alert_snapshot():
     import json
     import os
     import jax
-    from tpu_collide.core.config import AlertConfig
-    from tpu_collide.sim import generate_fleet
-    from tpu_collide import make_step
+    from collide.core.config import AlertConfig
+    from collide.sim import generate_fleet
+    from collide import make_step
 
     path = os.path.join(os.path.dirname(__file__), "golden",
                         "alerts_1000_cityskew.json")

@@ -6,9 +6,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tpu_collide import SystemConfig
-from tpu_collide.core.config import WorldConfig, GridConfig, DetectionConfig
-from tpu_collide.index.grid import build_grid, query_radius, cell_coords
+from collide import SystemConfig
+from collide.core.config import WorldConfig, GridConfig, DetectionConfig
+from collide.index.grid import build_grid, query_radius, cell_coords
 
 
 def cfg_for(n, world=1000.0, cell=100.0, cap=64):
@@ -101,8 +101,8 @@ def test_dead_objects_invisible(rng):
 def test_overflow_counter_reported(rng):
     """StepOutput.overflow counts capacity drops instead of hiding them."""
     import jax
-    from tpu_collide.engine import make_step
-    from tpu_collide.core.state import state_from_numpy
+    from collide.engine import make_step
+    from collide.core.state import state_from_numpy
     n = 64
     cfg = cfg_for(n, cap=8)
     # everyone in one cell -> 64 - 8 = 56 beyond capacity

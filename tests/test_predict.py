@@ -4,15 +4,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import tpu_collide as tc
-from tpu_collide.core.config import WorldConfig
-from tpu_collide.core.state import state_from_numpy
-from tpu_collide.core.types import LocationData, Position, Vector
-from tpu_collide.detect import (empty_history, update_history,
-                                classify_trajectories, needs_fallback,
-                                predict_collisions)
-from tpu_collide.index.grid import build_grid
-from tpu_collide.api import Scene
+import collide as tc
+from collide.core.config import WorldConfig
+from collide.core.state import state_from_numpy
+from collide.core.types import LocationData, Position, Vector
+from collide.detect import (empty_history, update_history,
+                            classify_trajectories, needs_fallback,
+                            predict_collisions)
+from collide.index.grid import build_grid
+from collide.api import Scene
 
 
 def test_classification_matches_reference_classes():
@@ -105,10 +105,9 @@ def test_scene_xla_predict_bucket_overflow_self_heals():
     """A predict-ONLY workload (record + predict, no step) on the XLA
     backend self-heals counted grid-bucket truncation: the overflowing
     call doubles cell_capacity and recompiles, and the healed call's
-    risk set equals a generously-capacitied oracle Scene's (VERDICT r4
-    Next #7 — before r5 the predict branch was warn-only)."""
-    from tpu_collide.core.config import (GridConfig, DetectionConfig,
-                                         AlertConfig, SimConfig)
+    risk set equals a generously-capacitied oracle Scene's."""
+    from collide.core.config import (GridConfig, DetectionConfig,
+                                     AlertConfig, SimConfig)
 
     n = 200
     rng = np.random.default_rng(7)
@@ -129,7 +128,7 @@ def test_scene_xla_predict_bucket_overflow_self_heals():
             detect=DetectionConfig(mode="fast"),
             sim=SimConfig(accel_change_prob=0.0),
             alerts=AlertConfig(max_scene_alerts=512))
-        sc = Scene(cfg, backend="xla")
+        sc = Scene(cfg)
         sc.adopt_fleet(st)
         for k in range(4):
             sc.record_trajectories(dt=0.5)
@@ -137,7 +136,7 @@ def test_scene_xla_predict_bucket_overflow_self_heals():
 
     sc = build(4)                               # far too small
     sc.predict()                                # overflowing call: heals
-    assert sc.window_regrows >= 1               # _grow_buckets fired
+    assert sc.regrows >= 1               # _grow_buckets fired
     for _ in range(6):                          # converge without tuning
         grown = sc.cfg.grid.cell_capacity
         risks = sc.predict()
@@ -158,12 +157,12 @@ def test_scene_xla_predict_heal_oom_fallback():
     stays counted). Simulated by planting a raising program in the
     predict cache with a heal in flight."""
     import jax as _jax
-    from tpu_collide.core.config import GridConfig
+    from collide.core.config import GridConfig
 
     cfg = tc.SystemConfig(num_objects=8,
                           world=WorldConfig(hi=(500.0, 500.0, 0.0)),
                           grid=GridConfig(cell_size=100.0, cell_capacity=32))
-    sc = Scene(cfg, backend="xla")
+    sc = Scene(cfg)
     for k in range(4):
         t = k * 0.5
         sc.ingest(LocationData("a", Position(10 * t, 100, 0),

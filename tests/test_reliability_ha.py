@@ -1,4 +1,4 @@
-"""Behavioral tests for the HA/DR half of the runtime (VERDICT r1 #7):
+"""Behavioral tests for the HA/DR half of the runtime:
 LeaderElection, ReplicationManager, StateTransferManager and
 RecoveryCoordinator — multi-node over one in-process broker. These are
 exactly the classes whose reference versions were never-ran vaporware
@@ -9,15 +9,15 @@ import asyncio
 import numpy as np
 import pytest
 
-from tpu_collide.runtime.messaging import (MessageBroker, Message,
-                                           TOPIC_ELECTION,
-                                           TOPIC_REPLICATION)
-from tpu_collide.runtime.reliability import (LeaderElection,
-                                             ReplicationManager,
-                                             StateTransferManager,
-                                             RecoveryCoordinator,
-                                             HeartbeatMonitor,
-                                             FailoverManager)
+from collide.runtime.messaging import (MessageBroker, Message,
+                                       TOPIC_ELECTION,
+                                       TOPIC_REPLICATION)
+from collide.runtime.reliability import (LeaderElection,
+                                         ReplicationManager,
+                                         StateTransferManager,
+                                         RecoveryCoordinator,
+                                         HeartbeatMonitor,
+                                         FailoverManager)
 
 
 def run(coro):
@@ -147,9 +147,9 @@ def test_recovery_coordinator_end_to_end(tmp_path):
     297-322): heartbeat failure -> failover reassigns the fleet resource ->
     the new owner's recovery handler restores from a checkpoint."""
     import jax
-    import tpu_collide as tc
-    from tpu_collide.sim import generate_fleet
-    from tpu_collide.ckpt.checkpoint import CheckpointManager
+    import collide as tc
+    from collide.sim import generate_fleet
+    from collide.ckpt.checkpoint import CheckpointManager
 
     cfg = tc.SystemConfig(num_objects=64)
     fleet = generate_fleet(jax.random.key(0), cfg)

@@ -1,20 +1,19 @@
 """Runtime capacity retuning (Scene.retune / auto_retune_every): the
 runtime analog of the reference's density-driven grid-resolution
 adjustment (spatial_index.py:139-160, 302-412 — a 10 s timer that SPLIT
-dense cells and MERGED sparse ones). On the TPU design resolution is
-fixed (cell = max(cell_size, search_radius) is both the legal minimum and
-the optimum on the fused path), so the adaptive dimension is CAPACITY:
-fused candidate windows and XLA gather buckets, re-derived from the live
-fleet in BOTH directions — counted-overflow regrow only ever grows."""
+dense cells and MERGED sparse ones). Here resolution is fixed (cell =
+max(cell_size, search_radius) is the smallest legal cell for the 1-cell
+stencil), so the adaptive dimension is CAPACITY: the gather buckets,
+re-derived from the live fleet in BOTH directions — the counted-overflow
+self-heal only ever grows."""
 import numpy as np
-import pytest
 import jax
 
-import tpu_collide as tc
-from tpu_collide.core.config import (WorldConfig, GridConfig,
-                                     DetectionConfig, SimConfig)
-from tpu_collide.core.state import state_from_numpy
-from tpu_collide.sim import generate_fleet
+import collide as tc
+from collide.core.config import (WorldConfig, GridConfig,
+                                 DetectionConfig, SimConfig)
+from collide.core.state import state_from_numpy
+from collide.sim import generate_fleet
 
 
 def mk_cfg(n=256, cap=16, mode="fast"):
@@ -63,7 +62,7 @@ def sparse_fleet(n, seed=1, n_alive=None):
 
 
 def test_suggest_cell_capacity_tracks_density():
-    from tpu_collide.kernels.tune import suggest_cell_capacity
+    from collide.kernels.tune import suggest_cell_capacity
     cfg = mk_cfg(n=256)
     dense = clustered_fleet(256, 80, width=40.0)   # ~80 in one cell's span
     sparse = sparse_fleet(256)
@@ -80,10 +79,10 @@ def test_xla_scene_retune_grows_bucket_capacity():
     """Counted gather-bucket overflow (StepOutput.overflow on the XLA
     backend) goes to 0 after retune() resizes cell_capacity to the live
     densest cell."""
-    from tpu_collide.api import Scene
+    from collide.api import Scene
     cfg = mk_cfg(n=128, cap=4)
     fleet = clustered_fleet(128, 40, width=30.0)
-    sc = Scene(cfg, state=fleet, backend="xla")
+    sc = Scene(cfg, state=fleet)
     out = sc.step()
     assert int(out.overflow) > 0          # 40 objects >> 4-slot buckets
     assert sc.retune() is True
@@ -95,9 +94,9 @@ def test_xla_scene_retune_grows_bucket_capacity():
 
 
 def test_xla_scene_retune_shrinks_with_hysteresis():
-    from tpu_collide.api import Scene
+    from collide.api import Scene
     cfg = mk_cfg(n=256, cap=64)
-    sc = Scene(cfg, state=sparse_fleet(256), backend="xla")
+    sc = Scene(cfg, state=sparse_fleet(256))
     assert sc.retune() is True            # 64 >> live densest bucket
     shrunk = sc.cfg.grid.cell_capacity
     assert shrunk < 64
@@ -108,9 +107,9 @@ def test_xla_scene_retune_shrinks_with_hysteresis():
 
 
 def test_auto_retune_every_runs_on_schedule():
-    from tpu_collide.api import Scene
+    from collide.api import Scene
     cfg = mk_cfg(n=256, cap=64)
-    sc = Scene(cfg, state=sparse_fleet(256), backend="xla",
+    sc = Scene(cfg, state=sparse_fleet(256),
                auto_retune_every=2)
     sc.step()
     assert sc.retunes == 0                # not due yet
@@ -119,127 +118,11 @@ def test_auto_retune_every_runs_on_schedule():
     assert sc.cfg.grid.cell_capacity < 64
 
 
-def test_fused_retune_resizes_windows_both_directions():
-    """Window capacity follows the fleet: ctor sizes exactly for a dense
-    cluster; after the fleet spreads out, retune() reclaims the capacity
-    (regrow alone never shrinks); a re-densified fleet grows it back
-    PREEMPTIVELY (no overflow-flagged step needed first). The resized
-    windows are proven complete via build_cell_list's overflow counter."""
-    from tpu_collide.api import Scene
-    from tpu_collide.kernels.cell_list import build_cell_list
-    cfg = mk_cfg(n=6144)
-    dense = clustered_fleet(6144, 6144, width=60.0)  # all in ~one cell
-    sc = Scene(cfg, state=dense, backend="fused", interpret=True)
-    wr_dense = sc._window_rows
-    # the fleet thins: ~97% of objects leave (dead) and the rest spread
-    # out — the need drops far past the 2x shrink hysteresis
-    sc.adopt_fleet(sparse_fleet(6144, n_alive=200))
-    assert sc.retune() is True
-    wr_sparse = sc._window_rows
-    assert wr_sparse < wr_dense
-    assert 2 * wr_sparse <= wr_dense      # past hysteresis, genuinely thin
-    assert int(build_cell_list(sc.state, sc.cfg,
-                               window_rows=wr_sparse).overflow) == 0
-    sc.adopt_fleet(dense)
-    assert sc.retune() is True            # grow back, before any step
-    assert sc._window_rows >= wr_dense - 8   # margin may differ, not need
-    assert int(build_cell_list(sc.state, sc.cfg,
-                               window_rows=sc._window_rows).overflow) == 0
-    assert sc.retunes == 2
-
-
 def test_service_wires_auto_retune():
     """--auto-retune reaches the Scene through CollisionSystem (and the
     CLI flag maps to the same ctor knob)."""
-    from tpu_collide.system import CollisionSystem
+    from collide.system import CollisionSystem
     sysm = CollisionSystem(mk_cfg(n=64), auto_retune_every=3)
     assert sysm.scene._auto_retune == 3
 
 
-@pytest.mark.slow
-def test_fused_step_after_retune_matches_fresh_scene():
-    """Retune only moves capacities: starting from deliberately-undersized
-    windows, retune() grows them PREEMPTIVELY (before any overflow-flagged
-    step) and the recompiled program's first step is certified complete
-    and identical (risk count + alert set) to a freshly-built,
-    exactly-sized Scene on the same fleet."""
-    from tpu_collide.api import Scene
-    cfg = mk_cfg(n=300)
-    dense = clustered_fleet(300, 300, width=60.0)
-
-    sc = Scene(cfg, state=dense, backend="fused", interpret=True,
-               window_rows=8, auto_window=False)
-    assert sc.retune() is True
-    assert sc._window_rows > 8
-
-    # fresh copy: both steps donate their state buffers
-    ref = Scene(cfg, state=clustered_fleet(300, 300, width=60.0),
-                backend="fused", interpret=True)
-    out_a = sc.step()
-    out_b = ref.step()                     # same key schedule (key(0))
-    assert int(out_a.overflow) == int(out_b.overflow) == 0
-    assert int(out_a.num_risks) == int(out_b.num_risks)
-
-    def pset(out):
-        v = np.asarray(out.alerts.valid).ravel()
-        a = np.asarray(out.alerts.vehicle_oid).ravel()[v]
-        b = np.asarray(out.alerts.other_oid).ravel()[v]
-        return {(int(x), int(y)) for x, y in zip(a, b)}
-    assert pset(out_a) == pset(out_b)
-
-
-@pytest.mark.slow
-def test_sharded_scene_retune_shrinks_and_steps():
-    """Oversized windows (e.g. inherited from a config or past regrow)
-    are reclaimed by retune() on the mesh facade, and the recompiled
-    sharded step still certifies complete."""
-    from tpu_collide.api import ShardedScene
-    from tpu_collide.core.config import ShardConfig
-    cfg = mk_cfg(n=256).replace(shard=ShardConfig(num_shards=4))
-    sc = ShardedScene(cfg, fleet=sparse_fleet(256, seed=5),
-                      backend="fused", interpret=True, window_rows=200)
-    assert sc.retune() is True
-    assert sc._window_rows < 200
-    assert sc.retunes == 1
-    out = sc.step()
-    assert int(out.overflow) == 0
-    assert sc.stats()["retunes"] == 1
-    assert sc.retune() is False           # stable point
-
-
-def test_precise_scene_sizes_survivor_cap_fleet_exact():
-    """A fused precise Scene adopts a fleet-exact survivor cap at build
-    (far below the 2N default for a sparse fleet), still certifies
-    complete, and retune() re-derives the cap in both directions with 2x
-    hysteresis (VERDICT r3 Next #5)."""
-    cfg = mk_cfg(n=4096, mode="precise")
-    st = sparse_fleet(4096, seed=3)
-    from tpu_collide.api import Scene
-    sc = Scene(cfg, state=st, backend="fused", interpret=True)
-    cap0 = sc.cfg.survivor_cap
-    assert cap0 < 2 * cfg.num_objects          # fleet-exact, not the default
-    out = sc.step()
-    assert int(out.alert_overflow) == 0        # certified at the exact cap
-
-    # cram the fleet into one dense patch, all converging on its center
-    # (zero-velocity fleets have no stage-2 survivors at all): retune
-    # must GROW the cap
-    dense = clustered_fleet(4096, 2048, width=120.0, seed=4)
-    import jax.numpy as jnp
-    ctr = jnp.asarray([560.0, 560.0, 0.0], jnp.float32)
-    d = ctr[None, :] - dense.pos
-    nrm = jnp.linalg.norm(d, axis=-1, keepdims=True)
-    dense = dense.replace(vel=5.0 * d / jnp.maximum(nrm, 1e-3))
-    sc.adopt_fleet(dense)
-    sc.retune()
-    cap_dense = sc.cfg.survivor_cap
-    assert cap_dense > cap0
-    # (this density exceeds the k<=16 per-object slot ceiling, so full
-    # certification is impossible by design — the overflow stays COUNTED;
-    # what matters here is the cap retune direction)
-    sc.step()
-
-    # back to sparse: retune shrinks only past the 2x hysteresis
-    sc.adopt_fleet(sparse_fleet(4096, seed=5))
-    sc.retune()
-    assert sc.cfg.survivor_cap < cap_dense

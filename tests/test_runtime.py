@@ -7,23 +7,23 @@ import time
 import numpy as np
 import pytest
 
-import tpu_collide as tc
-from tpu_collide.core.types import LocationData, Position, Vector, Task, NodeInfo, LoadMetrics
-from tpu_collide.core.utils import RateLimiter, CircuitBreaker, Timer
-from tpu_collide.runtime.messaging import (MessageBroker, Message,
-                                           MessageProducer, MessageConsumer,
-                                           TOPIC_ALERTS)
-from tpu_collide.runtime.storage import (InMemoryStorage,
-                                         VehicleLocationStorage,
-                                         CollisionRiskStorage,
-                                         GridVehicleStorage)
-from tpu_collide.runtime.scheduler import Scheduler, TaskWorker
-from tpu_collide.runtime.reliability import (HeartbeatMonitor,
-                                             ThrottlingManager,
-                                             AdaptiveThrottling,
-                                             FailoverManager)
-from tpu_collide.ckpt.checkpoint import CheckpointManager, BackupManager
-from tpu_collide.core.state import state_from_numpy
+import collide as tc
+from collide.core.types import LocationData, Position, Vector, Task, NodeInfo, LoadMetrics
+from collide.core.utils import RateLimiter, CircuitBreaker, Timer
+from collide.runtime.messaging import (MessageBroker, Message,
+                                       MessageProducer, MessageConsumer,
+                                       TOPIC_ALERTS)
+from collide.runtime.storage import (InMemoryStorage,
+                                     VehicleLocationStorage,
+                                     CollisionRiskStorage,
+                                     GridVehicleStorage)
+from collide.runtime.scheduler import Scheduler, TaskWorker
+from collide.runtime.reliability import (HeartbeatMonitor,
+                                         ThrottlingManager,
+                                         AdaptiveThrottling,
+                                         FailoverManager)
+from collide.ckpt.checkpoint import CheckpointManager, BackupManager
+from collide.core.state import state_from_numpy
 
 
 def run(coro):
@@ -98,7 +98,7 @@ def test_storage_ttl_and_domain_stores():
         assert len(hist) == 10 and cur.position.x == 14.0   # last-10
 
         risks = CollisionRiskStorage(s)
-        from tpu_collide.core.types import CollisionRisk
+        from collide.core.types import CollisionRisk
         r = CollisionRisk.new("a", "b", risk_level=0.7,
                               time_to_collision=2.0, distance=5.0)
         await risks.store_risk(r)
@@ -244,9 +244,9 @@ def test_collision_system_task_dispatch(tmp_path):
     """A task submitted through the system's scheduler reaches its own
     TaskWorker (the worker subscribes in __init__, pre-start — regression
     for the missing dispatch-loop backfill)."""
-    from tpu_collide.system import CollisionSystem
-    import tpu_collide as tc
-    from tpu_collide.core.config import WorldConfig
+    from collide.system import CollisionSystem
+    import collide as tc
+    from collide.core.config import WorldConfig
 
     async def go():
         sys_ = CollisionSystem(

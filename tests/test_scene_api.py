@@ -5,10 +5,10 @@ import asyncio
 import numpy as np
 import pytest
 
-import tpu_collide as tc
-from tpu_collide.core.config import WorldConfig
-from tpu_collide.core.types import LocationData, Position, Vector
-from tpu_collide.api import Scene
+import collide as tc
+from collide.core.config import WorldConfig
+from collide.core.types import LocationData, Position, Vector
+from collide.api import Scene
 
 
 def small_scene(tmp_path=None, n=64):
@@ -94,7 +94,7 @@ def test_rest_endpoints():
     """Drive the FastAPI app in-process via TestClient."""
     fastapi = pytest.importorskip("fastapi")
     from fastapi.testclient import TestClient
-    from tpu_collide.api.rest import create_app
+    from collide.api.rest import create_app
 
     sc = small_scene()
     app = create_app(sc)
@@ -138,7 +138,7 @@ def test_stdlib_http_server():
     """Drive the dependency-free HTTP server over a real socket."""
     import json
     import urllib.request
-    from tpu_collide.api.stdlib_server import SceneHTTPServer
+    from collide.api.stdlib_server import SceneHTTPServer
 
     sc = small_scene()
     srv = SceneHTTPServer(sc, port=0)
@@ -187,7 +187,7 @@ def test_collision_system_integration(tmp_path):
     """Boot the full system, ingest, let the loops run, read stats, stop.
     (The reference's equivalent module could not even import — SURVEY.md
     §2.9.)"""
-    from tpu_collide.system import CollisionSystem
+    from collide.system import CollisionSystem
 
     async def go():
         sys_ = CollisionSystem(
@@ -227,8 +227,8 @@ def test_collision_system_integration(tmp_path):
 def test_api_client_roundtrip():
     """ApiClient (stdlib fallback) against the stdlib server over a real
     socket — the reference ApiClient surface (api.py:394-598)."""
-    from tpu_collide.api.rest import ApiClient
-    from tpu_collide.api.stdlib_server import SceneHTTPServer
+    from collide.api.rest import ApiClient
+    from collide.api.stdlib_server import SceneHTTPServer
 
     sc = small_scene()
     srv = SceneHTTPServer(sc, port=0)
@@ -259,11 +259,11 @@ def test_api_client_roundtrip():
 
 
 def test_route_core_grid_boundary_exact():
-    """VERDICT r1 #6: exact cell membership for an object just across the
+    """Exact cell membership for an object just across the
     cell boundary. The round-1 FastAPI handler used a circumradius
     query_radius(center, cs*0.7071) which INCLUDED neighbor-cell residents;
     the shared route core must not."""
-    from tpu_collide.api.routes import RouteTable
+    from collide.api.routes import RouteTable
 
     sc = small_scene()
     # 100 m cells: carA in cell (1,1), carB 2 m away but in cell (2,1)
@@ -285,8 +285,8 @@ def test_stdlib_server_uses_shared_route_core():
     """Both transports serve the SAME handlers by construction: the stdlib
     server delegates to api/routes.RouteTable (and so does the FastAPI app),
     so the round-1 divergence class is structurally gone."""
-    from tpu_collide.api.routes import RouteTable
-    from tpu_collide.api.stdlib_server import SceneHTTPServer
+    from collide.api.routes import RouteTable
+    from collide.api.stdlib_server import SceneHTTPServer
 
     sc = small_scene()
     srv = SceneHTTPServer(sc, port=0)
@@ -312,7 +312,7 @@ def test_fault_injection_reference_surface():
     import urllib.request
 
     sc = small_scene()
-    from tpu_collide.api.stdlib_server import SceneHTTPServer
+    from collide.api.stdlib_server import SceneHTTPServer
     srv = SceneHTTPServer(sc, port=0)
     port = srv.start()
     base = f"http://127.0.0.1:{port}"
@@ -356,53 +356,14 @@ def test_fault_injection_reference_surface():
         srv.stop()
 
 
-def test_scene_auto_window_growth():
-    """Adaptive window sizing (the reference's density-driven grid-split
-    analog, spatial_index.py:139-160): a dense clump that overflows the
-    kernel's candidate windows makes the Scene double window_rows and
-    recompile; within a few steps the overflow counter returns to 0."""
-    import jax
-    import numpy as np
-    from tpu_collide.core.state import state_from_numpy
-    from tpu_collide.core.config import (GridConfig, DetectionConfig,
-                                         AlertConfig, SimConfig)
-
-    n = 1200          # > the 8*128-slot minimum window
-    cfg = tc.SystemConfig(
-        num_objects=n, world=WorldConfig(hi=(2000.0, 2000.0, 0.0)),
-        grid=GridConfig(cell_size=100.0, cell_capacity=64),
-        detect=DetectionConfig(mode="fast"),
-        sim=SimConfig(accel_change_prob=0.0),
-        alerts=AlertConfig(max_scene_alerts=64))
-    pos = np.full((n, 3), 50.0, np.float32)
-    pos[:, 2] = 0.0
-    st = state_from_numpy(pos, np.zeros((n, 3), np.float32),
-                          np.zeros((n, 3), np.float32),
-                          np.zeros(n, np.float32),
-                          np.full(n, 2.0, np.float32),
-                          np.zeros(n, np.int32))
-    sc = Scene(cfg, backend="fused", window_rows=8, interpret=True)
-    sc.adopt_fleet(st)
-    out = sc.step()
-    assert int(out.overflow) > 0          # 1200 objects > 8*128-slot window
-    assert sc.window_regrows >= 1
-    for _ in range(3):
-        out = sc.step()
-        if int(out.overflow) == 0:
-            break
-    assert int(out.overflow) == 0
-    assert sc._window_rows > 8
-
-
 def test_scene_xla_bucket_overflow_self_heals():
-    """XLA backend analog of window regrow (ADVICE r3): counted grid-bucket
-    overflow (objects beyond cell_capacity dropped from their bucket's
+    """Counted grid-bucket overflow (objects beyond cell_capacity dropped from their bucket's
     candidate gather) doubles cell_capacity and recompiles, with zero
     manual tuning — within a few steps the overflow counter returns to 0."""
     import numpy as np
-    from tpu_collide.core.state import state_from_numpy
-    from tpu_collide.core.config import (GridConfig, DetectionConfig,
-                                         AlertConfig, SimConfig)
+    from collide.core.state import state_from_numpy
+    from collide.core.config import (GridConfig, DetectionConfig,
+                                     AlertConfig, SimConfig)
 
     n = 300
     cfg = tc.SystemConfig(
@@ -420,11 +381,11 @@ def test_scene_xla_bucket_overflow_self_heals():
                           np.zeros(n, np.float32),
                           np.full(n, 2.0, np.float32),
                           np.zeros(n, np.int32))
-    sc = Scene(cfg, backend="xla")
+    sc = Scene(cfg)
     sc.adopt_fleet(st)
     out = sc.step()
     assert int(out.overflow) > 0
-    assert sc.window_regrows >= 1          # _grow_buckets fired
+    assert sc.regrows >= 1          # the bucket heal fired
     for _ in range(8):
         out = sc.step()
         if int(out.overflow) == 0:
@@ -433,10 +394,47 @@ def test_scene_xla_bucket_overflow_self_heals():
     assert sc.cfg.grid.cell_capacity > 4
 
 
+def test_scene_survivor_overflow_self_heals():
+    """Precise-mode stage-2 survivors beyond the static survivor cap are
+    counted (alert_overflow) and self-heal: the cap doubles and the step
+    recompiles until the certificate is 0 — and the healed step's alert
+    list equals an ample-cap run's on the same fleet and key."""
+    import jax
+    import numpy as np
+    from collide.core.config import (DetectionConfig, AlertConfig,
+                                     SimConfig)
+    from collide.sim import generate_fleet
+
+    cfg = tc.SystemConfig(
+        num_objects=400, world=WorldConfig(hi=(1500.0, 1500.0, 0.0)),
+        detect=DetectionConfig(mode="precise", precise_survivor_cap=16),
+        sim=SimConfig(accel_change_prob=0.0),
+        alerts=AlertConfig(max_scene_alerts=1024))
+    sc = Scene(cfg, state=generate_fleet(jax.random.key(4), cfg))
+    out = sc.step()
+    assert int(out.alert_overflow) > 0
+    for _ in range(8):
+        out = sc.step()
+        if int(out.alert_overflow) == 0:
+            break
+    assert int(out.alert_overflow) == 0 and sc.regrows >= 1
+    assert sc.cfg.survivor_cap > 16
+
+    ample = cfg.replace(detect=DetectionConfig(mode="precise"))
+    ref = Scene(ample, state=generate_fleet(jax.random.key(4), ample))
+    for _ in range(sc.step_count):
+        want = ref.step()
+
+    def pairs(o):
+        v = np.asarray(o.alerts.valid)
+        return set(zip(np.asarray(o.alerts.vehicle_oid)[v].tolist(),
+                       np.asarray(o.alerts.other_oid)[v].tolist()))
+    assert pairs(out) == pairs(want) and pairs(out)
+
+
 def test_scene_step_zero_rejected():
-    """step(0) is a caller error (ADVICE r3: it used to NameError deep in
-    the loop); the route core turns it into HTTP 400."""
-    from tpu_collide.api.routes import RouteTable
+    """step(0) is a caller error; the route core turns it into HTTP 400."""
+    from collide.api.routes import RouteTable
 
     sc = small_scene()
     with pytest.raises(ValueError):

@@ -8,13 +8,13 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-import tpu_collide as tc
-from tpu_collide.core.config import (ShardConfig, SimConfig, WorldConfig,
-                                     GridConfig, AlertConfig)
-from tpu_collide.sim import generate_fleet
-from tpu_collide.shard import (make_mesh, make_sharded_step,
-                               distribute_state, shard_slots)
-from tpu_collide.engine import make_step
+import collide as tc
+from collide.core.config import (ShardConfig, SimConfig, WorldConfig,
+                                 GridConfig, AlertConfig)
+from collide.sim import generate_fleet
+from collide.shard import (make_mesh, make_sharded_step,
+                           distribute_state, shard_slots)
+from collide.engine import make_step
 
 
 def base_cfg(n=800, shards=8, deterministic=True):
@@ -148,7 +148,7 @@ def test_cross_boundary_pair_detected_via_halo():
     otype = np.zeros(n, np.int32)
     acc = np.zeros((n, 3), np.float32)
 
-    from tpu_collide.core.state import state_from_numpy
+    from collide.core.state import state_from_numpy
     fleet = state_from_numpy(pos, vel, acc, heading, size, otype)
     mesh = make_mesh(cfg)
     st = distribute_state(fleet, cfg, mesh)
@@ -166,7 +166,7 @@ def test_sharded_scene_facade(tmp_path):
     """ShardedScene: step/alerts/stats/checkpoint-failover on the 8-dev mesh
     (the multi-node deployment facade; checkpointed failover = BASELINE
     config 5's reliability story)."""
-    from tpu_collide.api import ShardedScene
+    from collide.api import ShardedScene
 
     cfg = base_cfg(n=400, deterministic=False)
     fleet = generate_fleet(jax.random.key(11), cfg)
@@ -201,70 +201,3 @@ def collect_state_pos(sc):
     return np.asarray(host.pos)[alive][order]
 
 
-def test_sharded_fused_matches_sharded_xla():
-    """backend='fused' inside shard_map (interpret mode on the CPU mesh):
-    per-own-object risk counts and unordered alert pairs match the sharded
-    XLA fast path; cross-boundary halo pairs included."""
-    cfg = base_cfg(n=400, shards=8).replace(
-        detect=tc.SystemConfig().detect.__class__(mode="fast"))
-    fleet = generate_fleet(jax.random.key(5), cfg)
-    mesh = make_mesh(cfg)
-    key = jax.random.key(6)
-
-    st_x = distribute_state(fleet, cfg, mesh)
-    _, out_x, drop_x = make_sharded_step(cfg, mesh, donate=False)(st_x, key)
-
-    st_f = distribute_state(fleet, cfg, mesh)
-    _, out_f, drop_f = make_sharded_step(
-        cfg, mesh, donate=False, backend="fused", interpret=True)(st_f, key)
-
-    assert int(np.asarray(drop_f).sum()) == 0
-    assert int(out_f.num_alive) == 400
-    assert int(out_f.num_risks) == int(out_x.num_risks)
-    assert int(out_f.overflow) == 0
-
-    def pairs(out):
-        v = np.asarray(out.alerts.valid).ravel()
-        a = np.asarray(out.alerts.vehicle_oid).ravel()[v]
-        b = np.asarray(out.alerts.other_oid).ravel()[v]
-        return {(min(int(x), int(y)), max(int(x), int(y)))
-                for x, y in zip(a, b)}
-    px, pf = pairs(out_x), pairs(out_f)
-    # top-k slots + refine: exact scene-set equality (VERDICT r1 #3),
-    # certified complete by the overflow counter
-    assert int(out_f.alert_overflow) == 0
-    assert pf == px
-    assert int(out_f.num_pairs_checked) == int(out_x.num_pairs_checked)
-
-
-def test_sharded_scene_auto_window_regrow():
-    """ShardedScene(backend='fused') watches the window-overflow counter and
-    doubles window_rows between steps (ROADMAP r2 #9: the adaptive sizing
-    the single-device Scene already had). A fleet crammed into one slab
-    column overflows window_rows=8; after the regrow the next step reports
-    overflow 0 and the alert list is certified complete."""
-    from tpu_collide.api import ShardedScene
-    from tpu_collide.core.state import state_from_numpy
-
-    n = 1200
-    cfg = base_cfg(n=n, shards=2, deterministic=True).replace(
-        detect=tc.SystemConfig().detect.__class__(mode="fast"))
-    # everything inside ONE grid cell of slab 0 -> its cell-row needs ~10
-    # storage rows of window, overflowing the configured 8
-    rng = np.random.default_rng(0)
-    pos = np.zeros((n, 3), np.float32)
-    pos[:, 0] = 10.0 + rng.uniform(0, 80, n)
-    pos[:, 1] = 10.0 + rng.uniform(0, 80, n)
-    fleet = state_from_numpy(pos, np.zeros((n, 3), np.float32),
-                             np.zeros((n, 3), np.float32),
-                             np.zeros(n, np.float32),
-                             np.full(n, 2.0, np.float32),
-                             np.zeros(n, np.int32))
-    sc = ShardedScene(cfg, fleet=fleet, backend="fused", interpret=True,
-                      window_rows=8, auto_rebalance=False)
-    out1 = sc.step()
-    assert int(out1.overflow) > 0          # counted, never silent
-    assert sc.window_regrows >= 1
-    out2 = sc.step()
-    assert int(out2.overflow) == 0
-    assert sc.stats()["window_regrows"] == sc.window_regrows

@@ -5,12 +5,12 @@ import numpy as np
 import jax
 import pytest
 
-import tpu_collide as tc
-from tpu_collide.core.config import (ShardConfig, SimConfig, WorldConfig,
-                                     AlertConfig)
-from tpu_collide.core.types import LocationData, Position, Vector
-from tpu_collide.api.sharded_scene import ShardedScene
-from tpu_collide.shard import shard_slots
+import collide as tc
+from collide.core.config import (ShardConfig, SimConfig, WorldConfig,
+                                 AlertConfig)
+from collide.core.types import LocationData, Position, Vector
+from collide.api.sharded_scene import ShardedScene
+from collide.shard import shard_slots
 
 
 def make_scene(n=64, shards=8, headroom=2.0):

@@ -1,4 +1,4 @@
-"""Prediction on the mesh (VERDICT r2 next-round #4): per-shard
+"""Prediction on the mesh: per-shard
 predict_collisions over a displacement-widened halo band must equal the
 single-device canonical prediction, histories must migrate with their
 objects, and ShardedScene.record/predict must ride it end-to-end."""
@@ -7,17 +7,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import tpu_collide as tc
-from tpu_collide.core.config import (ShardConfig, SimConfig, WorldConfig,
-                                     GridConfig, DetectionConfig, AlertConfig)
-from tpu_collide.core.state import state_from_numpy
-from tpu_collide.sim import generate_fleet
-from tpu_collide.detect.predict import (empty_history, update_history,
-                                        predict_collisions)
-from tpu_collide.index.grid import build_grid
-from tpu_collide.shard import make_mesh, make_sharded_step, distribute_state
-from tpu_collide.shard.predict import (make_sharded_predict,
-                                       distribute_history, predict_reach)
+import collide as tc
+from collide.core.config import (ShardConfig, SimConfig, WorldConfig,
+                                 GridConfig, DetectionConfig, AlertConfig)
+from collide.core.state import state_from_numpy
+from collide.sim import generate_fleet
+from collide.detect.predict import (empty_history, update_history,
+                                    predict_collisions)
+from collide.index.grid import build_grid
+from collide.shard import make_mesh, make_sharded_step, distribute_state
+from collide.shard.predict import (make_sharded_predict,
+                                   distribute_history, predict_reach)
 
 
 def base_cfg(n=300, shards=8, dy=1, dz=1):
@@ -151,7 +151,7 @@ def test_history_migrates_with_objects():
 
 
 def test_sharded_scene_predict_end_to_end():
-    from tpu_collide.api import ShardedScene
+    from collide.api import ShardedScene
 
     cfg = base_cfg(n=200, shards=8)
     fleet = generate_fleet(jax.random.key(3), cfg)
@@ -173,8 +173,8 @@ def test_history_redistributes_on_rebalance():
     """A rebalance moves objects to new slots; their trajectory rings must
     move with them (ShardedScene._redistribute_hist) or predict would
     classify with other objects' histories."""
-    from tpu_collide.api import ShardedScene
-    from tpu_collide.core.state import state_from_numpy
+    from collide.api import ShardedScene
+    from collide.core.state import state_from_numpy
 
     n = 200
     rng = np.random.default_rng(0)
@@ -224,10 +224,10 @@ def test_halo_exchange_hops_visibility():
     exactly — every shard sees precisely the alive objects within `width`
     of its slab, delivered over a 3-hop ppermute chain."""
     from jax.sharding import PartitionSpec as P
-    from tpu_collide.core.state import ObjectState
-    from tpu_collide.shard.halo import halo_exchange_hops
-    from tpu_collide.shard.step import (_shard_coords, _state_spec_axes,
-                                        equal_boundaries, shard_slots)
+    from collide.core.state import ObjectState
+    from collide.shard.halo import halo_exchange_hops
+    from collide.shard.step import (_shard_coords, _state_spec_axes,
+                                    equal_boundaries, shard_slots)
 
     cfg = base_cfg(n=40, shards=8).replace(world=WorldConfig(
         hi=(4000.0, 4000.0, 0.0)))
@@ -276,7 +276,7 @@ def test_sharded_predict_multihop_matches_single_device():
     multi-hop chain delivers the far candidates and per-shard prediction
     stays exactly equal to single-device — including a crafted pair whose
     query (shard 0) meets a candidate owned by shard 2."""
-    from tpu_collide.shard.predict import predict_hops
+    from collide.shard.predict import predict_hops
 
     n = 42
     cfg = base_cfg(n=n, shards=8).replace(world=WorldConfig(
@@ -338,7 +338,7 @@ def test_sharded_predict_multihop_2d_mesh():
     """Multi-hop on the (x, y) tile grid: a crafted pair two Y-slabs apart
     rides the y-phase forwarding chain (which re-mirrors the x-extended
     state); per-shard prediction equals single-device exactly."""
-    from tpu_collide.shard.predict import predict_hops
+    from collide.shard.predict import predict_hops
 
     n = 24
     cfg = base_cfg(n=n, shards=2, dy=4).replace(world=WorldConfig(
@@ -391,63 +391,3 @@ def test_sharded_predict_multihop_2d_mesh():
                                    rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.slow
-def test_sharded_fused_predict_matches_single_device():
-    """backend='fused' sharded prediction (cell-list kernel per shard,
-    interpret): same pair set and values as the single-device canonical
-    predict_collisions — halo mirrors enter marked, results join on
-    row_oid."""
-    cfg = base_cfg()
-    state, hist = fleet_with_history(cfg)
-    horizon, step = 3.0, 0.5
-
-    o1, v1, r1, t1, d1 = jax.jit(
-        lambda s, h: predict_collisions(
-            s, h, build_grid(s.pos, s.alive, cfg), cfg,
-            horizon=horizon, step=step))(state, hist)
-    single = predict_map(np.asarray(state.oid)[np.asarray(o1)], v1, r1, t1,
-                         state.oid)
-
-    mesh = make_mesh(cfg)
-    st = distribute_state(state, cfg, mesh)
-    hs = distribute_history(hist, cfg, mesh, state)
-    pfn = make_sharded_predict(cfg, mesh, horizon=horizon, step=step,
-                               backend="fused", interpret=True)
-    o8, v8, r8, t8, d8, row_oid, dropped, overflow = pfn(st, hs)
-    assert int(np.asarray(dropped).sum()) == 0
-    assert int(np.asarray(overflow).sum()) == 0
-    sharded = predict_map(o8, v8, r8, t8, row_oid)
-
-    assert single, "fleet too tame: no predicted risks, test vacuous"
-    assert set(sharded) == set(single)
-    for k in single:
-        np.testing.assert_allclose(sharded[k], single[k],
-                                   rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.slow
-def test_sharded_scene_fused_predict_end_to_end():
-    """ShardedScene(backend='fused').predict auto-selects the per-shard
-    fused prediction (interpret on the CPU mesh) and returns the same
-    risks the XLA-backed scene does."""
-    from tpu_collide.api import ShardedScene
-
-    cfg = base_cfg(n=200, shards=8)
-    fleet = generate_fleet(jax.random.key(3), cfg)
-    horizon, step = 3.0, 0.5
-
-    def run(backend):
-        sc = ShardedScene(cfg, fleet=fleet, auto_rebalance=False,
-                          backend=backend, interpret=(backend == "fused"))
-        sc.record_trajectories()
-        sc.record_trajectories()
-        return sc.predict(horizon=horizon, step=step)
-
-    rx = {(r.vehicle_id, r.other_vehicle_id):
-          (r.risk_level, r.time_to_collision) for r in run("xla")}
-    rf = {(r.vehicle_id, r.other_vehicle_id):
-          (r.risk_level, r.time_to_collision) for r in run("fused")}
-    assert rx, "no predicted risks, test vacuous"
-    assert set(rf) == set(rx)
-    for k in rf:
-        np.testing.assert_allclose(rf[k], rx[k], rtol=1e-5, atol=1e-5)

@@ -7,11 +7,11 @@ import numpy as np
 import jax
 import pytest
 
-import tpu_collide as tc
-from tpu_collide.core.config import ShardConfig, SimConfig, AlertConfig
-from tpu_collide.core.types import LocationData, Position, Vector
-from tpu_collide.api.sharded_scene import ShardedScene
-from tpu_collide.api.routes import RouteTable
+import collide as tc
+from collide.core.config import ShardConfig, SimConfig, AlertConfig
+from collide.core.types import LocationData, Position, Vector
+from collide.api.sharded_scene import ShardedScene
+from collide.api.routes import RouteTable
 
 
 def make_scene(n=64, dx=4, dy=2):
@@ -72,7 +72,7 @@ def test_sharded_scene_route_surface():
 
 
 def test_collision_system_builds_sharded_scene():
-    from tpu_collide.system import CollisionSystem
+    from collide.system import CollisionSystem
 
     cfg = tc.SystemConfig(
         num_objects=32,
@@ -93,7 +93,7 @@ def test_sharded_scene_route_surface_3d_mesh():
     converging pair that straddles the z wall, detect over the mesh, and
     read the risk back — the z-phase halo must carry the cross-wall
     candidate."""
-    from tpu_collide.core.config import WorldConfig, GridConfig
+    from collide.core.config import WorldConfig, GridConfig
     cfg = tc.SystemConfig(
         num_objects=64,
         world=WorldConfig(hi=(2000.0, 2000.0, 400.0)),

@@ -1,18 +1,18 @@
 """step_pipelined: one-behind serving (dispatch step n, consume step n-1
 while the device works). Outputs are bit-identical to step() — same
 compiled program, same key schedule — every step's alerts reach the
-AlertManager (one step late), and auto-regrow fires once per capacity
-generation even with two in-flight outputs of the same undersized
-program."""
+AlertManager (one step late), and the capacity self-heal fires once per
+capacity generation even with two in-flight outputs of the same
+undersized program."""
 import numpy as np
 import pytest
 import jax
 
-import tpu_collide as tc
-from tpu_collide.core.config import (WorldConfig, GridConfig,
-                                     DetectionConfig, SimConfig)
-from tpu_collide.core.state import state_from_numpy
-from tpu_collide.sim import generate_fleet
+import collide as tc
+from collide.core.config import (WorldConfig, GridConfig,
+                                 DetectionConfig, SimConfig)
+from collide.core.state import state_from_numpy
+from collide.sim import generate_fleet
 
 
 def mk_cfg(n=400):
@@ -30,12 +30,10 @@ def pset(out):
 
 
 def test_pipelined_matches_step_sequence():
-    from tpu_collide.api import Scene
+    from collide.api import Scene
     cfg = mk_cfg()
-    sc_a = Scene(cfg, state=generate_fleet(jax.random.key(3), cfg),
-                 backend="xla")
-    sc_b = Scene(cfg, state=generate_fleet(jax.random.key(3), cfg),
-                 backend="xla")
+    sc_a = Scene(cfg, state=generate_fleet(jax.random.key(3), cfg))
+    sc_b = Scene(cfg, state=generate_fleet(jax.random.key(3), cfg))
     outs_a = [sc_a.step() for _ in range(5)]
     outs_b = [sc_b.step_pipelined() for _ in range(5)]
     outs_b.append(sc_b.pipeline_drain())
@@ -51,11 +49,11 @@ def test_pipelined_matches_step_sequence():
 
 
 def test_pipelined_regrows_once_per_capacity_generation():
-    """Two in-flight outputs produced by the same undersized window must
-    trigger ONE regrow (the guard compares the capacity at dispatch), not
-    double the window twice."""
-    from tpu_collide.api import Scene
-    n = 1200
+    """Two in-flight outputs produced by the same undersized grid buckets
+    must trigger ONE regrow (the guard compares the capacity at dispatch),
+    not double cell_capacity twice."""
+    from collide.api import Scene
+    n = 24
     cfg = mk_cfg(n)
     rng = np.random.default_rng(0)
     pos = np.zeros((n, 3), np.float32)
@@ -66,16 +64,15 @@ def test_pipelined_regrows_once_per_capacity_generation():
                              np.zeros(n, np.float32),
                              np.full(n, 2.0, np.float32),
                              np.zeros(n, np.int32))
-    sc = Scene(cfg, state=fleet, backend="fused", interpret=True,
-               window_rows=8)                   # ~1336 elems > 8*128 slots
-    assert sc.step_pipelined() is None          # s1 dispatched @8
-    o1 = sc.step_pipelined()                    # s2 dispatched @8; s1 consumed
+    sc = Scene(cfg, state=fleet)                # 24 in one 16-slot bucket
+    assert sc.step_pipelined() is None          # s1 dispatched @16
+    o1 = sc.step_pipelined()                    # s2 dispatched @16; s1 consumed
     assert int(o1.overflow) > 0
-    assert sc._window_rows == 16                # one doubling
+    assert sc.cfg.grid.cell_capacity == 32      # one doubling
     o2 = sc.pipeline_drain()                    # s2 consumed: same generation
     assert int(o2.overflow) > 0
-    assert sc._window_rows == 16                # guard skipped the re-double
-    out = sc.step()                             # first step @16: complete
+    assert sc.cfg.grid.cell_capacity == 32      # guard skipped the re-double
+    out = sc.step()                             # first step @32: complete
     assert int(out.overflow) == 0
 
 
@@ -83,8 +80,8 @@ def test_sharded_pipelined_matches_step_sequence():
     """ShardedScene.step_pipelined == one-behind of ShardedScene.step on
     the 4-shard mesh: same risks, same alert lifecycle, same drop
     accounting."""
-    from tpu_collide.api import ShardedScene
-    from tpu_collide.core.config import ShardConfig
+    from collide.api import ShardedScene
+    from collide.core.config import ShardConfig
     cfg = mk_cfg(256).replace(shard=ShardConfig(num_shards=4))
     a = ShardedScene(cfg, fleet=generate_fleet(jax.random.key(7), cfg),
                      auto_rebalance=False)
@@ -107,9 +104,9 @@ def test_rest_step_route_over_sharded_scene():
     route scalar-converted them and raised on any mesh-backed service;
     found by an end-to-end drive, fixed with np reductions). Covers
     pipelined=true on the mesh too."""
-    from tpu_collide.api import ShardedScene
-    from tpu_collide.api.routes import RouteTable
-    from tpu_collide.core.config import ShardConfig
+    from collide.api import ShardedScene
+    from collide.api.routes import RouteTable
+    from collide.core.config import ShardConfig
     cfg = mk_cfg(256).replace(shard=ShardConfig(num_shards=4))
     sc = ShardedScene(cfg, fleet=generate_fleet(jax.random.key(7), cfg),
                       auto_rebalance=False)
@@ -128,12 +125,11 @@ def test_rest_step_route_pipelined_param():
     """POST /step {'pipelined': true} rides Scene.step_pipelined through
     the shared route core: the first call reports pending (nothing
     consumed yet), later calls describe the one-behind step."""
-    from tpu_collide.api import Scene
-    from tpu_collide.api.routes import RouteTable
+    from collide.api import Scene
+    from collide.api.routes import RouteTable
 
     cfg = mk_cfg(64)
-    sc = Scene(cfg, state=generate_fleet(jax.random.key(2), cfg),
-               backend="xla")
+    sc = Scene(cfg, state=generate_fleet(jax.random.key(2), cfg))
     routes = RouteTable(sc)
     code, r = routes.handle("POST", "/step", {"pipelined": True}, {})
     assert code == 200 and r["data"]["pipelined_pending"] is True
@@ -146,10 +142,9 @@ def test_rest_step_route_pipelined_param():
 
 
 def test_mixing_modes_drains_first():
-    from tpu_collide.api import Scene
+    from collide.api import Scene
     cfg = mk_cfg(128)
-    sc = Scene(cfg, state=generate_fleet(jax.random.key(1), cfg),
-               backend="xla")
+    sc = Scene(cfg, state=generate_fleet(jax.random.key(1), cfg))
     assert sc.step_pipelined() is None
     assert sc._pipe is not None
     sc.step()                                   # drains s1, then steps s2

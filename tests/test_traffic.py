@@ -7,12 +7,12 @@ import math
 import numpy as np
 import pytest
 
-import tpu_collide as tc
-from tpu_collide.core.config import ShardConfig, SimConfig, WorldConfig
-from tpu_collide.sim.traffic import TrafficMap, VehicleSimulator, scene_sink
-from tpu_collide.runtime.messaging import MessageBroker
-from tpu_collide.runtime.reliability import (StateTransferManager,
-                                             RecoveryCoordinator)
+import collide as tc
+from collide.core.config import ShardConfig, SimConfig, WorldConfig
+from collide.sim.traffic import TrafficMap, VehicleSimulator, scene_sink
+from collide.runtime.messaging import MessageBroker
+from collide.runtime.reliability import (StateTransferManager,
+                                         RecoveryCoordinator)
 
 
 def run(coro):
@@ -88,7 +88,7 @@ def test_road_constrained_rides_roads():
 def test_simulator_scene_sink_roundtrip():
     cfg = tc.SystemConfig(num_objects=64,
                           world=WorldConfig(hi=(1000.0, 1000.0, 0.0)))
-    from tpu_collide.api import Scene
+    from collide.api import Scene
     sc = Scene(cfg)
     m = TrafficMap(seed=8).generate_grid_map(2, 2, cell_size=500.0)
     sim = VehicleSimulator(m, num_vehicles=10, seed=9)
@@ -100,9 +100,9 @@ def test_simulator_scene_sink_roundtrip():
 
 def test_load_balancer_occupancy_and_rebalance():
     import jax
-    from tpu_collide.sim import generate_fleet
-    from tpu_collide.shard import (make_mesh, distribute_state, shard_slots,
-                                   LoadBalancer, shard_occupancy, imbalance)
+    from collide.sim import generate_fleet
+    from collide.shard import (make_mesh, distribute_state, shard_slots,
+                               LoadBalancer, shard_occupancy, imbalance)
     cfg = tc.SystemConfig(num_objects=400,
                           shard=ShardConfig(num_shards=8, slot_headroom=6.0),
                           sim=SimConfig(accel_change_prob=0.0))
@@ -127,7 +127,7 @@ def test_load_balancer_occupancy_and_rebalance():
 
 
 def test_quantile_boundaries_balance_counts():
-    from tpu_collide.shard import quantile_boundaries
+    from collide.shard import quantile_boundaries
     rng = np.random.default_rng(0)
     x = np.concatenate([rng.uniform(0, 100, 900),
                         rng.uniform(100, 1000, 100)])
